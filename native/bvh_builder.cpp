@@ -1,6 +1,6 @@
 // Native binned-SAH BVH builder.
 //
-// TPU-native analogue of the reference's host-side acceleration-structure
+// Native analogue of the reference's host-side acceleration-structure
 // build (src/kdtree.h:141-292 BuildTree/FlattenTree — there a duplicating
 // kd-tree, here the binned-SAH BVH its bvh.h:14 stub asked for). Large scenes
 // (the 100K-triangle Stanford dragon) builds in milliseconds here vs seconds
@@ -75,9 +75,9 @@ struct Task {
 extern "C" int tracy_build_bvh(const float* tri_min_f, const float* tri_max_f,
                                int t_count, int leaf_size, int max_depth,
                                int cost_mode,  // 0 = per-triangle SAH,
-                               // 1 = per-chunk (ceil(count/leaf_size)):
-                               // the Pallas kernel MT-tests whole chunks
-                               // at count-independent cost
+                               // 1 = per-chunk (ceil(count/leaf_size)),
+                               // for traversals that test a whole
+                               // fixed-width leaf at one cost
                                float* node_bounds, int* node_meta,
                                int* tri_order, int* out_max_depth) {
   if (t_count <= 0 || leaf_size < 1) return -1;

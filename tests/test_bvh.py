@@ -112,13 +112,12 @@ def test_bvh_scene_intersector_matches_bruteforce():
     np.testing.assert_array_equal(np.asarray(hb.tri)[m], np.asarray(hf.tri)[m])
 
 
-def test_bvh_cornell_render_matches_bruteforce(reference_data_root):
+def test_bvh_cornell_render_matches_bruteforce(scene_file):
     """Full render equality: same RNG + same hits => identical images."""
     from tracy_tpu.config import RenderConfig
     from tracy_tpu.render.renderer import Renderer, init_state
 
-    b = load_scene(f"{reference_data_root}/data/scenes/cornell.scn",
-                   data_root=reference_data_root)
+    b = load_scene(scene_file("cornell"))
     b.width, b.height = 32, 32
     scene = b.build()
     host, bvh = build_scene_bvh(scene, leaf_size=8)

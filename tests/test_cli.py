@@ -36,8 +36,8 @@ def test_cli_pt_default_scene(tmp_path):
 def test_cli_raster_scene(tmp_path):
     out = str(tmp_path / "raster.ppm")
     res = run_cli(["-cpu", "-kernel", "raster", "-scene",
-                   "/root/reference/data/scenes/testtree.scn",
-                   "-data-root", "/root/reference", "-out", out])
+                   os.path.join(REPO, "tests", "goldens", "scn",
+                                "testtree.scn"), "-out", out])
     assert res.returncode == 0, res.stderr[-1500:]
     assert os.path.exists(out)
     with open(out, "rb") as f:

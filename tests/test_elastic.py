@@ -1,9 +1,9 @@
 """Elastic failure recovery: checkpoints are mesh-agnostic.
 
-The TPU-native failure story (SURVEY.md §5 failure detection/recovery):
+The failure story (SURVEY.md §5 failure detection/recovery):
 accum state + RNG streams are keyed by GLOBAL pixel/sample ids, so a
 checkpoint written under one mesh shape restores onto ANY other shape —
-lose half the slice, restore the last checkpoint on what remains, continue
+lose half the devices, restore the last checkpoint on what remains, continue
 bit-identically. Training state (params + Adam moments + step) resumes
 exactly too; without the moments a resumed Adam run diverges.
 """

@@ -25,9 +25,8 @@ from tracy_tpu.scene.scene import SceneBuilder
 
 
 @pytest.fixture(scope="module")
-def furnace_small(reference_data_root):
-    b = load_scene(f"{reference_data_root}/data/scenes/furnace.scn",
-                   data_root=reference_data_root)
+def furnace_small(scene_file):
+    b = load_scene(scene_file("furnace"))
     b.width, b.height = 24, 18
     return b.build()
 
@@ -168,18 +167,17 @@ def test_inverse_rendering_recovers_albedo(furnace_small):
     assert losses[-1] < losses[0] * 0.01
 
 
-def test_pallas_forward_gradients_match_fd(furnace_small):
-    """Material gradients through the Pallas kernel forward (zero-VJP
-    wrapper, interpret mode on CPU): the kernel's discrete outputs carry all
-    material-gradient paths, so autodiff == FD even though the kernel itself
-    has no VJP (round-1 gap #3)."""
+@pytest.mark.parametrize("accel", ["packet", "bvh"])
+def test_training_forward_gradients_match_fd(furnace_small, accel):
+    """Material gradients through the training intersector's zero-VJP
+    forward: its discrete outputs carry all material-gradient paths, so
+    autodiff == FD although the traversal itself is never differentiated."""
     from tracy_tpu.diff.gradients import make_training_intersector
 
     cfg = RenderConfig(width=24, height=18, spp=1, max_bounces=3,
-                       tonemap="none", russian_roulette=False, accel="packet")
+                       tonemap="none", russian_roulette=False, accel=accel)
     isect = make_training_intersector(furnace_small, cfg,
-                                      needs_geometry_grads=False,
-                                      interpret=True)
+                                      needs_geometry_grads=False)
     params = extract_params(furnace_small)
 
     def f(albedo):
@@ -228,16 +226,17 @@ def _depth_fd_check(scene, cfg, isect_factory):
     assert dz < 0  # -z shift => farther => larger depth
 
 
-def test_geometry_diff_packet_fd():
-    """Vertex gradients through the winner-recompute intersector with the
-    XLA packet base: the detached winner + Möller–Trumbore recompute must
+@pytest.mark.parametrize("accel", ["packet", "bvh"])
+def test_geometry_diff_packet_fd(accel):
+    """Vertex gradients through the winner-recompute intersector on each
+    traversal base: the detached winner + Möller–Trumbore recompute must
     match finite differences (round 1's differentiable_geometry path could
     not reverse-differentiate at all: lax.while_loop has no reverse rule)."""
     from tracy_tpu.diff.gradients import make_training_intersector
 
     scene = _tri_depth_scene()
     cfg = RenderConfig(width=16, height=16, aov="depth", tonemap="none",
-                       accel="packet", use_pallas=False)
+                       accel=accel)
 
     def factory(s):
         return make_training_intersector(s, cfg, needs_geometry_grads=True)
@@ -245,19 +244,17 @@ def test_geometry_diff_packet_fd():
     _depth_fd_check(scene, cfg, factory)
 
 
-def test_geometry_diff_pallas_fd():
-    """Same FD check with the Pallas kernel base (interpret mode on CPU):
-    the kernel's winner-slot output plane + slot_tri mapping feed the same
-    recompute, so geometry optimization runs on the production kernel."""
+def test_geometry_diff_compacted_fd():
+    """Same FD check with per-wave compaction around the packet base: the
+    winner-slot plane rides the compaction route into the same recompute."""
     from tracy_tpu.diff.gradients import GeometryDiffIntersector, make_training_intersector
 
     scene = _tri_depth_scene()
     cfg = RenderConfig(width=16, height=16, aov="depth", tonemap="none",
-                       accel="packet")
+                       accel="packet", wave_compact_group=1024)
 
     def factory(s):
-        isect = make_training_intersector(s, cfg, needs_geometry_grads=True,
-                                          interpret=True)
+        isect = make_training_intersector(s, cfg, needs_geometry_grads=True)
         assert isinstance(isect, GeometryDiffIntersector)
         return isect
 
@@ -269,7 +266,7 @@ def test_geometry_diff_recompute_consistent(furnace_small):
     (same vertex data): t/uv/normal allclose on a real scene's primary wave."""
     from tracy_tpu.diff.gradients import make_training_intersector
 
-    cfg = RenderConfig(width=24, height=18, accel="packet", use_pallas=False)
+    cfg = RenderConfig(width=24, height=18, accel="packet")
     isect = make_training_intersector(furnace_small, cfg,
                                       needs_geometry_grads=True)
     base = isect._base
@@ -316,7 +313,7 @@ def test_material_grads_with_compaction():
         cfg = RenderConfig(width=32, height=32, spp=1, accel="packet",
                            max_bounces=2, tonemap="none",
                            wave_compact_group=grp)
-        isect = make_training_intersector(scene, cfg, interpret=True,
+        isect = make_training_intersector(scene, cfg,
                                           needs_geometry_grads=False)
         params = extract_params(scene)
         loss, grads = jax.value_and_grad(
@@ -348,7 +345,7 @@ def test_geometry_grads_with_compaction():
         cfg = RenderConfig(width=32, height=32, spp=1, accel="packet",
                            max_bounces=2, tonemap="none",
                            wave_compact_group=grp)
-        isect = make_training_intersector(scene, cfg, interpret=True,
+        isect = make_training_intersector(scene, cfg,
                                           needs_geometry_grads=True)
         params = extract_params(scene)
         loss, grads = jax.value_and_grad(
@@ -357,3 +354,49 @@ def test_geometry_grads_with_compaction():
         outs[grp] = (float(loss), np.asarray(grads.vertex_pos))
     assert outs[0][0] == outs[1024][0]
     np.testing.assert_array_equal(outs[0][1], outs[1024][1])
+
+
+def _textured_scene():
+    b = SceneBuilder(16, 16)
+    b.set_sky_color((1, 1, 1))
+    m = b.add_material((1, 1, 1), 1.0, 0.0)
+    tex = b.add_texture(np.full((4, 4, 4), 0.5, np.float32))
+    b.set_material_texture(m, 0, tex)  # basecolor
+    plain = b.add_material((0.6, 0.5, 0.4), 1.0, 0.0)
+    b.add_sphere((-0.6, 0, -3), 0.8, m, steps=8)
+    b.add_sphere((0.7, 0, -3), 0.6, plain, steps=8)
+    b.set_camera(eye=(0, 0, 1), center=(0, 0, -3), up=(0, 1, 0), fov_degrees=60)
+    return b.build()
+
+
+@pytest.mark.parametrize("accel", ["packet", "bvh"])
+@pytest.mark.parametrize("field,index,rtol", [
+    ("albedo", (2, 0), 2e-2),
+    ("emissive", (0, 1), 5e-3),
+    ("tex_data", (8, 1), 2e-2),
+])
+def test_training_loss_gradient_matches_fd(accel, field, index, rtol):
+    """Each differentiable parameter kind through make_training_intersector
+    and render_loss (the train step's loss), autodiff against central
+    differences. Geometry is covered by test_geometry_diff_packet_fd."""
+    from tracy_tpu.diff.gradients import make_training_intersector
+
+    scene = _textured_scene()
+    cfg = RenderConfig(width=16, height=16, spp=2, max_bounces=3,
+                       tonemap="none", russian_roulette=False, accel=accel)
+    isect = make_training_intersector(scene, cfg, needs_geometry_grads=False)
+    target = jnp.zeros((16, 16, 3), jnp.float32)
+    frame = jnp.asarray(1, jnp.int32)
+    params = extract_params(scene)
+
+    def f(x):
+        return render_loss(params._replace(**{field: x}), scene, target, cfg,
+                           frame, isect)
+
+    x0 = getattr(params, field)
+    g = np.asarray(jax.grad(f)(x0))[index]
+    h = 1e-3
+    e = jnp.zeros_like(x0).at[index].set(1.0)
+    fd = (f(x0 + h * e) - f(x0 - h * e)) / (2 * h)
+    assert g != 0.0
+    np.testing.assert_allclose(float(g), float(fd), rtol=rtol)

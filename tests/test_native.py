@@ -73,15 +73,32 @@ def test_native_bvh_traversal_agrees_with_bruteforce():
     np.testing.assert_allclose(np.asarray(brute.t)[m], np.asarray(hb.t)[m], rtol=1e-6)
 
 
+def _write_obj(path, seed=0):
+    """A small seeded OBJ: two named shapes, one with normals and uvs and a
+    quad face (fan-triangulated), one with positions only."""
+    rng = np.random.default_rng(seed)
+    v = rng.uniform(-1, 1, size=(12, 3))
+    vn = rng.normal(size=(6, 3))
+    vt = rng.uniform(0, 1, size=(6, 2))
+    lines = [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in v]
+    lines += [f"vn {x:.6f} {y:.6f} {z:.6f}" for x, y, z in vn]
+    lines += [f"vt {x:.6f} {y:.6f}" for x, y in vt]
+    lines += ["o first", "f 1/1/1 2/2/2 3/3/3", "f 3/3/3 2/2/2 4/4/4 5/5/5",
+              "f 5/6/6 6/5/5 1/1/1",
+              "o second", "f 7 8 9", "f 9 10 11 12", "f 8 10 12"]
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
 @needs_native
-def test_native_obj_loader_matches_python(reference_data_root):
+def test_native_obj_loader_matches_python(tmp_path):
     from tracy_tpu.scene.objloader import load_obj
     from tracy_tpu.scene.objloader_native import load_obj_native
 
-    path = f"{reference_data_root}/data/teapot.obj"
+    path = _write_obj(tmp_path / "seeded.obj")
     ref = load_obj(path)
     nat = load_obj_native(path)
-    assert len(ref) == len(nat)
+    assert len(ref) == len(nat) == 2
     for a, b in zip(ref, nat):
         np.testing.assert_allclose(a.positions, b.positions, rtol=1e-6)
         np.testing.assert_array_equal(a.indices, b.indices)

@@ -72,9 +72,8 @@ def test_packet_nondivisible_ray_count():
     assert attrs.normal.shape == (100, 3)
 
 
-def test_packet_render_matches_bruteforce_image(reference_data_root):
-    b = load_scene(f"{reference_data_root}/data/scenes/cornell.scn",
-                   data_root=reference_data_root)
+def test_packet_render_matches_bruteforce_image(scene_file):
+    b = load_scene(scene_file("cornell"))
     b.width, b.height = 32, 32
     scene = b.build()
 
@@ -92,9 +91,8 @@ def test_packet_render_matches_bruteforce_image(reference_data_root):
     assert int(rays_bf) == int(rays_p)
 
 
-def test_packet_dragon_primary_rays(reference_data_root):
-    b = load_scene(f"{reference_data_root}/data/scenes/dragon.scn",
-                   data_root=reference_data_root)
+def test_packet_dragon_primary_rays(scene_file):
+    b = load_scene(scene_file("dragon"))
     scene = b.build()
     bvh, host = build_packet_bvh(scene, leaf_size=64)
     isect_p = make_packet_intersector(scene, bvh, leaf_size=64, packet_size=256)

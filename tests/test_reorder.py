@@ -100,9 +100,9 @@ def test_pick_compact_group():
         assert g & (g - 1) == 0
         npad = -(-n // g) * g
         assert g == 2048 or (npad - n) / n <= 0.125
-    # Scene-adaptive branch (round-5 calibration, COMPACT_MIN_TRIS=16384):
-    # helmet-class opaque scenes below the threshold skip the butterfly;
-    # the 20K sphere grid (measured ON-win) and translucent scenes keep it.
+    # Scene-adaptive branch (COMPACT_MIN_TRIS=16384): opaque scenes below
+    # the threshold skip the butterfly; larger and translucent scenes keep
+    # it.
     n = 1920 * 1080
     assert pick_compact_group(n, num_tris=15452,
                               has_translucent=False) == 0
@@ -113,10 +113,9 @@ def test_pick_compact_group():
 
 
 @pytest.mark.parametrize("scn", ["cornell", "trimesh"])
-def test_render_equal_with_compaction(scn, reference_data_root):
+def test_render_equal_with_compaction(scn, scene_file):
     """Full progressive renders, with and without per-wave compaction."""
-    b = load_scene(f"{reference_data_root}/data/scenes/{scn}.scn",
-                   data_root=reference_data_root)
+    b = load_scene(scene_file(scn))
     b.width, b.height = 64, 64
     scene = b.build()
 
@@ -140,89 +139,3 @@ def test_render_equal_with_compaction(scn, reference_data_root):
     # equal-t triangles where packet composition may pick either winner.
     np.testing.assert_allclose(imgs[2048, True], imgs[0, True],
                                rtol=1e-5, atol=1e-5)
-
-
-@pytest.mark.parametrize("rounds,probes,frac", [
-    (1, 1, 0.1), (2, 3, 0.08), (3, 3, 0.3),
-])
-def test_pair_merge_routing_bit_exact(rounds, probes, frac):
-    """Forward merge + backward route must be a bit-exact permutation:
-    every ORIGINALLY-live lane's payload appears live exactly once after
-    the merge, and a payload-identity round trip restores it."""
-    from tracy_tpu.accel.reorder import (
-        pair_merge_backward, pair_merge_forward,
-    )
-
-    rng = np.random.default_rng(rounds * 10 + probes)
-    b, p = 8, 512
-    alive = rng.uniform(size=(b, p)) < frac
-    x = rng.normal(size=(b, p, 4)).astype(np.float32)
-
-    xm, am, takes = jax.jit(
-        lambda x_, a_: pair_merge_forward(x_, a_, rounds, probes)
-    )(x, alive)
-    xm, am = np.asarray(xm), np.asarray(am)
-    # conservation: live count unchanged; live payload multiset preserved
-    assert am.sum() == alive.sum()
-    live_vals0 = np.sort(x[alive][:, 0])
-    live_vals1 = np.sort(xm[am][:, 0])
-    np.testing.assert_array_equal(live_vals0, live_vals1)
-
-    # backward: merged-position payloads return to original lanes
-    r = np.asarray(jax.jit(
-        lambda y_, t_: pair_merge_backward(y_, t_, rounds, probes)
-    )(jnp.asarray(xm), takes))
-    np.testing.assert_array_equal(r[alive], x[alive])
-
-
-def test_pair_merge_intersector_matches_plain():
-    """Wrapper vs raw rich intersector: bit-exact per ray (the XLA packet
-    path is per-lane independent, so even tie winners cannot differ)."""
-    from tracy_tpu.accel.packet import build_packet_bvh, make_packet_intersector
-    from tracy_tpu.accel.reorder import pair_merge_intersector
-
-    scene = default_scene(32, 24).build()
-    bvh, _ = build_packet_bvh(scene, leaf_size=64)
-    isect = make_packet_intersector(scene, bvh, leaf_size=64,
-                                    packet_size=1024, with_tangent=True)
-    rng = np.random.default_rng(11)
-    n = 8192
-    ss = jnp.asarray(rng.uniform(0.02, 0.98, n).astype(np.float32))
-    tt = jnp.asarray(rng.uniform(0.02, 0.98, n).astype(np.float32))
-    o, d = scene.camera.generate_rays(ss, tt)
-    act = jnp.asarray(rng.uniform(size=n) < 0.07)  # sparse late-wave regime
-
-    h0, a0 = isect(o, d, act)
-    h1, a1 = pair_merge_intersector(isect, rounds=2, probes=3,
-                                    packet=1024)(o, d, act)
-
-    live = np.asarray(act)
-    np.testing.assert_array_equal(np.asarray(h1.mask),
-                                  np.asarray(h0.mask) & live)
-    m = np.asarray(h1.mask)
-    np.testing.assert_array_equal(np.asarray(h1.t)[m], np.asarray(h0.t)[m])
-    np.testing.assert_array_equal(np.asarray(h1.uv)[m],
-                                  np.asarray(h0.uv)[m])
-    np.testing.assert_array_equal(np.asarray(a1.normal)[m],
-                                  np.asarray(a0.normal)[m])
-    np.testing.assert_array_equal(np.asarray(a1.material)[m],
-                                  np.asarray(a0.material)[m])
-
-
-def test_pair_merge_render_matches_uncompacted():
-    """End-to-end: a render with pair-merge enabled matches the plain
-    render (packet path, CPU)."""
-    import dataclasses
-
-    scene = default_scene(64, 32).build()
-    cfg0 = RenderConfig(width=64, height=32, spp=1, max_bounces=4,
-                        accel="packet", pallas_packet_rays=1024)
-    cfg1 = dataclasses.replace(cfg0, pallas_pair_merge=2)
-    accs = []
-    for cfg in (cfg0, cfg1):
-        r = Renderer(cfg)
-        st = init_state(cfg)
-        for _ in range(2):
-            st, _ = r.step(scene, st)
-        accs.append(np.asarray(st.accum))
-    np.testing.assert_allclose(accs[0], accs[1], rtol=0, atol=1e-6)

@@ -59,15 +59,14 @@ def test_rng_menu_quality():
     assert not np.array_equal(f, x) and not np.array_equal(f, l)
 
 
-def test_rng_menu_renders():
+def test_rng_menu_renders(scene_file):
     """A couple of frames through the full renderer with each algorithm:
     finite image, furnace background exactly 1.0."""
     from tracy_tpu.config import RenderConfig
     from tracy_tpu.render.renderer import Renderer, init_state
     from tracy_tpu.scene.scn_parser import load_scene
 
-    b = load_scene("/root/reference/data/scenes/furnace.scn",
-                   data_root="/root/reference")
+    b = load_scene(scene_file("furnace"))
     b.width, b.height = 64, 48
     scene = b.build()
     for kind in ("xorshift", "lcg"):

@@ -181,3 +181,34 @@ def test_scaling_shape_overhead_1080p(n_data):
     g = pick_compact_group(shard_rays)
     compact_overhead = (-(-shard_rays // g) * g) / shard_rays - 1.0
     assert compact_overhead < 0.05, (n_data, g, compact_overhead)
+
+
+@pytest.mark.parametrize("n_data,n_sample", [(8, 1), (4, 2), (2, 4), (1, 8)])
+def test_sharded_default_path_render(n_data, n_sample):
+    """The platform default path (config.default_path), built once with
+    build_accel and replicated over the mesh, renders what the single-device
+    Renderer renders: bit-identical with rows sharded only, equal to float
+    summation order with samples sharded."""
+    from tracy_tpu.config import default_path
+    from tracy_tpu.render.renderer import build_accel
+    from tracy_tpu.scene.procedural import sphere_grid
+
+    b = sphere_grid(64, 32, num_spheres=4, steps=10)
+    sc = b.build()
+    cfg = RenderConfig(width=64, height=32, spp=8, max_bounces=3,
+                       tonemap="none",
+                       **default_path("gpu", 64 * 32, b.num_triangles,
+                                      b.has_translucent))
+    ref_st, ref_rays = Renderer(cfg).step(sc, init_state(cfg))
+
+    mesh = make_render_mesh(n_data, n_sample)
+    step = make_sharded_render_step(cfg, mesh, accel=build_accel(sc, cfg))
+    st, rays = step(replicate_scene(sc, mesh), init_state(cfg))
+    if n_sample == 1:
+        np.testing.assert_array_equal(np.asarray(st.accum),
+                                      np.asarray(ref_st.accum))
+    else:
+        np.testing.assert_allclose(np.asarray(st.accum),
+                                   np.asarray(ref_st.accum),
+                                   atol=3e-6, rtol=1e-5)
+    assert int(rays) == int(ref_rays)

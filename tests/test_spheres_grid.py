@@ -12,9 +12,8 @@ from tracy_tpu.scene.scn_parser import load_scene
 
 
 @pytest.mark.slow
-def test_spheres_grid_renders_distinct_rows(reference_data_root):
-    b = load_scene(f"{reference_data_root}/data/scenes/spheres.scn",
-                   data_root=reference_data_root)
+def test_spheres_grid_renders_distinct_rows(scene_file):
+    b = load_scene(scene_file("spheres"))
     b.width, b.height = 96, 72
     scene = b.build()
     cfg = RenderConfig(width=96, height=72, spp=4, max_bounces=4,

@@ -120,15 +120,14 @@ def test_srgb_decode_at_load():
 
 
 @pytest.mark.slow
-def test_helmet_scene_textured_render(reference_data_root):
+def test_helmet_scene_textured_render(scene_file):
     """Damaged Helmet: 5 jpg texture maps + HDR sky fallback; the textured
     basecolor AOV must show texture variation (not flat material albedo)."""
     from tracy_tpu.config import RenderConfig
     from tracy_tpu.render.renderer import Renderer, init_state
     from tracy_tpu.scene.scn_parser import load_scene
 
-    b = load_scene(f"{reference_data_root}/data/scenes/helmet.scn",
-                   data_root=reference_data_root)
+    b = load_scene(scene_file("helmet"))
     b.width, b.height = 96, 72
     scene = b.build()
     assert len(b.atlas) == 6  # 5 maps + fallback sky

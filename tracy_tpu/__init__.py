@@ -1,11 +1,11 @@
-"""tracy-tpu: a TPU-native differentiable progressive Monte Carlo path tracer.
+"""tracy-tpu: a differentiable progressive Monte Carlo path tracer in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of carcass82/tracy
-(a C++20/CUDA interactive path tracer, see /root/reference): triangle-mesh path
+A JAX/XLA framework with the capabilities of carcass82/tracy (a C++20/CUDA
+interactive path tracer, see SURVEY.md): triangle-mesh path
 tracing with an Unreal-style roughness/metalness/translucency/IOR material model,
 textured meshes, HDR sky probes, procedural geometry, a `.scn` scene format,
 BVH-accelerated intersection and progressive sample accumulation — re-designed
-TPU-first:
+for data-parallel accelerators:
 
 * flat SoA scene pytrees instead of OO Mesh/Material graphs,
 * a wavefront integrator (`lax.scan` over bounces, masked lanes) instead of a

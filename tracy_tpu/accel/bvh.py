@@ -1,6 +1,6 @@
 """Flattened-BVH closest-hit traversal on device.
 
-TPU re-design of the reference's acceleration path (kd-tree build + iterative
+Data-parallel re-design of the reference's acceleration path (kd-tree build + iterative
 FixedSizeStack traversal, src/kdtree.h:364-429, driven two-level from
 cpu_details.cpp:88-185). Differences, deliberately:
 
@@ -14,7 +14,7 @@ cpu_details.cpp:88-185). Differences, deliberately:
   recursion, no data-dependent shapes — XLA sees a static dataflow graph;
 * slab test matches reference RayAABB (collision.h:119-131):
   `tmax >= max(EPS, tmin) && tmin < closest_t`, with inverse directions
-  clamped to +/-1e30 instead of IEEE inf (avoids 0*inf NaNs).
+  clamped to +/-1e12 instead of IEEE inf (avoids 0*inf NaNs).
 
 Ray-box pruning uses the running closest-t so far, children are pushed
 near-first for early tightening.
@@ -29,10 +29,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from tracy_tpu.core import math as tm
-from tracy_tpu.render.intersect import FLT_MAX, Hit
+from tracy_tpu.render.intersect import FLT_MAX, Hit, inverse_direction
 from tracy_tpu.accel.bvh_build import HostBVH, build_bvh, pad_leaves
-
-INV_CLAMP = 1.0e30
 
 
 class BVHArrays(NamedTuple):
@@ -116,9 +114,7 @@ def intersect_bvh(
     dtype = origin.dtype
     rows = jnp.arange(n)
 
-    inv_d = jnp.clip(1.0 / jnp.where(jnp.abs(direction) < 1e-12,
-                                     jnp.float32(1e-12), direction),
-                     -INV_CLAMP, INV_CLAMP)
+    inv_d = inverse_direction(direction)
 
     start_sp = jnp.ones((n,), jnp.int32)
     if active is not None:

@@ -46,9 +46,9 @@ def build_bvh(
     leaf_size: int = 8,
     max_depth: int = 60,
     cost_mode: str = "tris",  # 'tris' = classic SAH (per-triangle
-    # intersection cost); 'chunks' = per-LEAF-VISIT cost: the Pallas
-    # kernel MT-tests a whole 128-slot chunk at count-independent cost,
-    # so the objective minimizes expected CHUNK visits
+    # intersection cost); 'chunks' = per-LEAF-VISIT cost, for a traversal
+    # that tests a whole fixed-width leaf chunk at count-independent cost:
+    # the objective minimizes expected CHUNK visits
     # (ceil(count/leaf_size) replaces count in the split cost).
 ) -> HostBVH:
     t_count = len(tri_min)

@@ -3,7 +3,7 @@
 Optimizes scene parameters (material albedo/roughness/metalness, textures,
 or vertex positions) so a re-render matches a target image. No reference
 analogue exists (Tracy cannot differentiate anything); this is the north-star
-capability of the TPU framework.
+capability of this framework.
 
 Examples:
   # Re-derive a material's albedo from a rendering of the scene
@@ -43,9 +43,10 @@ def main(argv=None):
                    help="perturb+recover this param instead of using -target")
     p.add_argument("-cpu", action="store_true")
     p.add_argument("-accel", default="auto", choices=("auto", "none"),
-                   help="auto = packet BVH (Pallas kernel on TPU for "
-                        "material/texture params, XLA packet for vertex "
-                        "gradients); none = brute force")
+                   help="auto = the platform's default traversal "
+                        "(config.default_path; zero-gradient for "
+                        "material/texture params, winner recompute for "
+                        "vertex gradients); none = brute force")
     args = p.parse_args(argv)
 
     if args.cpu:
@@ -57,13 +58,14 @@ def main(argv=None):
     import jax.numpy as jnp
     import optax
 
-    from tracy_tpu.config import RenderConfig
+    from tracy_tpu.config import RenderConfig, default_path
     from tracy_tpu.diff import (
         apply_params, extract_params, make_train_step,
     )
     from tracy_tpu.render import film
     from tracy_tpu.render.renderer import sample_radiance
     from tracy_tpu.scene.scn_parser import default_scene, load_scene
+    from tracy_tpu.utils.compile_cache import setup_compile_cache
     from tracy_tpu.utils.image_io import save_image
     from tracy_tpu.utils.log import log
 
@@ -75,18 +77,22 @@ def main(argv=None):
         builder = default_scene(args.width, args.height)
     scene = builder.build()
 
+    setup_compile_cache()
+    path = default_path(jax.default_backend(), args.width * args.height,
+                        builder.num_triangles, builder.has_translucent)
+    if args.accel == "none":
+        path = {"accel": "none", "wave_compact_group": 0}
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        max_bounces=args.bounces, tonemap="none",
-                       accel="none" if args.accel == "none" else "packet",
-                       russian_roulette=False)
+                       russian_roulette=False, **path)
 
     param_names = (args.selftest or args.params).split(",")
     intersect_fn = None
     if args.accel == "auto":
         from tracy_tpu.diff import make_training_intersector
 
-        # vertex gradients need the traced-geometry XLA path; everything
-        # else rides the Pallas kernel forward (zero-VJP wrapper).
+        # vertex gradients need the winner recompute; everything else
+        # rides the traversal forward under a zero-gradient VJP.
         intersect_fn = make_training_intersector(
             scene, cfg, needs_geometry_grads="vertex_pos" in param_names,
         )

@@ -53,20 +53,11 @@ def main(argv=None):
     p.add_argument("-ray-chunk", type=int, default=0)
     p.add_argument("-accel", default=None,
                    choices=["packet", "tlas", "bvh", "none"],
-                   help="acceleration tier (default: packet for -kernel pt"
-                        " on TPU, bvh on CPU; none for pt-bf)")
+                   help="acceleration tier (default: chosen per platform"
+                        " and scene by config.default_path; none for pt-bf)")
     p.add_argument("-compact", type=int, default=None,
-                   help="per-wave live-ray compaction group (rays; default"
-                        " 262144 on the TPU packet path, 0 otherwise)")
-    p.add_argument("-rb-mode", default=None,
-                   choices=["minloop", "list", "arena", "vlist", "fused",
-                            "mt"],
-                   help="Pallas winner-readback mode (default: fused)")
-    p.add_argument("-bvh-width", type=int, default=4, choices=[2, 4, 8],
-                   help="Pallas traversal branching factor (default: 4)")
-    p.add_argument("-packet-rays", type=int, default=4096,
-                   choices=[1024, 2048, 4096, 8192],
-                   help="rays per Pallas packet (default: 4096)")
+                   help="per-wave live-ray compaction group (rays; default:"
+                        " config.default_path)")
     p.add_argument("-cpu", action="store_true", help="force the CPU backend")
     p.add_argument("-mesh", default=None,
                    help="multi-chip mesh as DATAxSAMPLE, e.g. 4x2")
@@ -84,8 +75,9 @@ def main(argv=None):
 
         jax.config.update("jax_platforms", "cpu")
 
-    from tracy_tpu.config import RenderConfig
+    from tracy_tpu.config import RenderConfig, default_path
     from tracy_tpu.scene.scn_parser import default_scene, load_scene
+    from tracy_tpu.utils.compile_cache import setup_compile_cache
     from tracy_tpu.utils.log import log
 
     if args.scene:
@@ -98,39 +90,21 @@ def main(argv=None):
     log("objects: %s, triangles: %s" % (
         human_count(builder.num_objects), human_count(builder.num_triangles)))
 
-    # Acceleration tier: the packet path (Pallas kernel on TPU, XLA packet
-    # otherwise) is the production tracer; the per-ray-stack 'bvh' tier is
-    # faster to COMPILE on CPU, so it stays the CPU default. pt-bf is the
-    # brute-force oracle.
-    if args.cpu:
-        on_tpu = False
-    else:
-        try:
-            import jax as _jax
+    import jax
 
-            on_tpu = _jax.default_backend() not in ("cpu",)
-        except Exception:
-            on_tpu = False
+    setup_compile_cache()
+    path = default_path(jax.default_backend(), builder.width * builder.height,
+                        builder.num_triangles, builder.has_translucent)
     if args.accel is not None:
         accel = args.accel
     elif args.kernel == "pt-bf":
         accel = "none"
     else:
-        accel = "packet" if on_tpu else "bvh"
+        accel = path["accel"]
     compact = args.compact
     if compact is None:
-        if on_tpu and accel in ("packet", "tlas"):
-            # Largest group whose wave padding stays bounded (the compactor
-            # pads each wave up to a multiple of the group; dead pad lanes
-            # trace for real — see pick_compact_group).
-            from tracy_tpu.accel.reorder import pick_compact_group
-
-            compact = pick_compact_group(
-                builder.width * builder.height,
-                num_tris=builder.num_triangles,
-                has_translucent=builder.has_translucent)
-        else:
-            compact = 0
+        compact = (path["wave_compact_group"]
+                   if accel == path["accel"] else 0)
 
     cfg = RenderConfig(
         width=builder.width,
@@ -144,12 +118,6 @@ def main(argv=None):
         russian_roulette=not args.no_rr,
         ray_chunk=args.ray_chunk,
         wave_compact_group=compact,
-        # Round-3 measured defaults (sessions S-U): vlist readback + 4-wide
-        # traversal + on-core shade (the config default) = 5.04 MRays/s on
-        # dragon 1080p, 17.4 on helmet (vs 4.58/1.21 at the round-2 config).
-        pallas_rb_mode=args.rb_mode or "vlist",
-        pallas_bvh_width=args.bvh_width,
-        pallas_packet_rays=args.packet_rays,
     )
 
     if args.kernel in ("raster", "raster-gl"):
@@ -167,18 +135,17 @@ def main(argv=None):
         _save(np.asarray(img), args.out)
         return 0
 
-    from tracy_tpu.render.renderer import Renderer, init_state
+    from tracy_tpu.render.renderer import Renderer, build_accel
 
     if args.mesh:
-        import jax
-
         from tracy_tpu.parallel import (
             make_render_mesh, make_sharded_render_step, replicate_scene,
         )
 
         nd, ns = (int(x) for x in args.mesh.lower().split("x"))
         mesh = make_render_mesh(nd, ns)
-        step = make_sharded_render_step(cfg, mesh)
+        step = make_sharded_render_step(cfg, mesh,
+                                        accel=build_accel(scene, cfg))
         scene = replicate_scene(scene, mesh)
         state, start = _resume_or_init(args, cfg, mesh=mesh)
         total_rays, t0 = 0.0, time.perf_counter()

@@ -5,7 +5,7 @@ un-projecting the NDC point (s, t, 1)*2-1 through inverse(projection @ view)
 — not the classic lower-left-corner method. znear/zfar default to .1/10000
 (camera.h:37).
 
-TPU-natively the camera is a small pytree of arrays so it can live inside a
+Here the camera is a small pytree of arrays so it can live inside a
 jitted render step, and `generate_rays` is batched over an arbitrary number of
 (s, t) samples at once.
 """
@@ -77,10 +77,11 @@ class Camera:
         """
         ndc = jnp.stack([s, t, jnp.ones_like(s)], axis=-1) * 2.0 - 1.0  # [..., 3]
         p = jnp.concatenate([ndc, jnp.ones_like(ndc[..., :1])], axis=-1)  # [..., 4]
-        # Explicit mul-add instead of `p @ M.T`: a [N,4]x[4,4] matmul lands on
-        # the TPU MXU in bf16 by default, and the homogeneous w component
-        # cancels catastrophically (-> inf/NaN directions). VPU f32 math is
-        # exact and just as fast at this size.
+        # Explicit mul-add instead of `p @ M.T`: an accelerator may run a
+        # float32 matmul at reduced precision (TF32 or bf16 passes) by
+        # default, and the homogeneous w component cancels catastrophically
+        # (-> inf/NaN directions). Elementwise f32 math is exact and just as
+        # fast at this size.
         m = self.inv_view_projection
         world = (
             p[..., 0:1] * m[:, 0]

@@ -3,15 +3,15 @@
 The reference threads a mutable 32-bit PRNG state (xorshift/LCG/PCG, see
 src/random.h:9-97) through every bounce — with a benign-but-real data race
 when OpenMP threads share the static state (cpu_trace.cpp:42). Stateful PRNGs
-do not map to XLA's pure-functional tracing, so TPU-natively every draw is a
+do not map to XLA's pure-functional tracing, so here every draw is a
 pure hash of (seed, pixel, frame, bounce, draw): deterministic, replayable and
-shard-stable — a pixel gets the same sample sequence no matter which chip
+shard-stable — a pixel gets the same sample sequence no matter which device
 renders it.
 
 Four implementations — the counter-based re-imagining of the reference's
 compile-time menu (CPU_RAND_ALGORITHM rand/XorShift/LCG/PCG,
 CMakeLists.txt:181-182, random.h:9-97):
-  * `fast`: a PCG-style integer hash (a few VPU int ops per draw). This is the
+  * `fast`: a PCG-style integer hash (a few integer ops per draw). This is the
     spiritual successor of the reference's default PCG (random.h:59-77).
   * `xorshift`: the xorshift32 permutation (random.h:22-34) applied twice to
     the mixed counter.

@@ -1,7 +1,7 @@
 """Differentiable rendering: pixel gradients -> scene parameters.
 
-The reference has no differentiability at all; this is the north-star
-capability of the TPU framework (BASELINE.json). The whole light path is
+The reference has no differentiability at all; this is the framework's
+north-star capability. The whole light path is
 differentiable by construction:
 
 * intersection t/uv are smooth functions of vertex positions
@@ -78,9 +78,8 @@ def apply_params(scene: SceneArrays, params: TrainableParams) -> SceneArrays:
 class GeometryDiffIntersector:
     """Winner-recompute differentiable intersector.
 
-    The fast non-differentiable base intersector (Pallas kernel on TPU /
-    interpret mode, XLA packet traversal otherwise) finds each ray's winning
-    triangle SLOT; the differentiable outputs (t, barycentric uv, shading
+    The non-differentiable base intersector (the packet traversal) finds
+    each ray's winning triangle SLOT; the differentiable outputs (t, barycentric uv, shading
     normal/tangent, texture uv) are then RECOMPUTED in closed form from the
     TRACED scene arrays at that detached winner — Möller–Trumbore partials
     of the winning triangle only, no differentiation through traversal. The
@@ -90,8 +89,8 @@ class GeometryDiffIntersector:
 
     This replaces round 1's `differentiable_geometry=True` traced-prepare
     path, which could not be reverse-differentiated at all (lax.while_loop
-    has no reverse-mode rule) — and it runs the forward at full kernel
-    speed.
+    has no reverse-mode rule) — and its forward pass is the plain render
+    traversal.
 
     Use `bind(traced_scene)` inside the loss so gradients reach the traced
     vertex arrays; `render_loss`/`sample_radiance` callers do this
@@ -177,108 +176,117 @@ class GeometryDiffIntersector:
         return hit, attrs
 
 
+def nondiff_intersector(intersect):
+    """Make an IntersectFn differentiation-safe with a zero-gradient VJP.
+
+    Why this is CORRECT for material/texture/emissive inverse rendering:
+    every gradient those optimizations need flows through the
+    intersector's DISCRETE outputs — the material id selects table rows
+    (differentiable w.r.t. the table), the hit uv selects texels (nearest
+    sampling, differentiable w.r.t. texel VALUES and zero a.e. w.r.t. uv),
+    and the shading normal only steers detached sampling decisions. The
+    only gradients a zero VJP drops are geometry gradients (vertex
+    positions through t/uv/normal), which GeometryDiffIntersector
+    recomputes. The backward pass then never enters the traversal loop.
+    """
+    import numpy as np
+
+    @jax.custom_vjp
+    def f(origin, direction, active):
+        return intersect(origin, direction, active)
+
+    def fwd(origin, direction, active):
+        # No residuals: shapes/dtypes are NOT valid jit residuals, and the
+        # ray count is recoverable from the hit-t cotangent in bwd.
+        return f(origin, direction, active), None
+
+    def bwd(_res, ct):
+        hit_ct = ct[0]
+        n = hit_ct.t.shape[0]
+        zero = jnp.zeros((n, 3), hit_ct.t.dtype)
+        zero_act = np.zeros((n,), jax.dtypes.float0)
+        return (zero, zero, zero_act)
+
+    f.defvjp(fwd, bwd)
+    return f
+
+
+def _bvh_slot_base(scene: SceneArrays, cfg: RenderConfig):
+    """The per-ray-stack BVH as a slot-returning base for
+    GeometryDiffIntersector: (o, d, act) -> (Hit, PacketAttrs, slot), with
+    the global triangle id as the slot and only the material filled in
+    (the winner recompute supplies normal, tangent and uv)."""
+    from tracy_tpu.accel.bvh import build_scene_bvh, make_bvh_intersector
+    from tracy_tpu.accel.packet import PacketAttrs
+
+    _host, dev = build_scene_bvh(
+        scene, leaf_size=cfg.bvh_leaf_size,
+        max_depth=max(cfg.traversal_stack_depth - 4, 8))
+    isect = make_bvh_intersector(scene, dev, leaf_size=cfg.bvh_leaf_size,
+                                 stack_depth=cfg.traversal_stack_depth)
+    tri_material = scene.tri_material
+
+    def base(o, d, act):
+        hit = isect(o, d, act)
+        zero3 = jnp.zeros(o.shape, o.dtype)
+        attrs = PacketAttrs(normal=zero3, tangent=zero3,
+                            uv=jnp.zeros(o.shape[:1] + (2,), o.dtype),
+                            material=tri_material[hit.tri])
+        return hit, attrs, jnp.where(hit.mask, hit.tri, -1)
+
+    base.slot_tri = jnp.arange(scene.indices.shape[0], dtype=jnp.int32)
+    return base, isect
+
+
 def make_training_intersector(scene: SceneArrays, cfg: RenderConfig,
-                              needs_geometry_grads: bool,
-                              interpret: bool = False):
-    """Best intersector for inverse rendering.
+                              needs_geometry_grads: bool):
+    """Intersector for inverse rendering on cfg.accel's traversal: the
+    per-ray-stack BVH for accel='bvh', the packet traversal otherwise.
 
     * materials/textures/emissive only (needs_geometry_grads=False): the
-      Pallas kernel wrapped in a zero-gradient VJP — every needed gradient
-      flows through the kernel's discrete outputs (see
-      ops.pallas_packet.nondiff_intersector), so the forward pass runs at
-      full kernel speed (round-1 gap: gradient work was 11x slower on the
-      XLA path). Falls back to the XLA packet intersector off-TPU.
-    * vertex positions trainable: a GeometryDiffIntersector — the same fast
-      forward kernel, with t/uv/normal gradients recomputed at the detached
-      winning triangle (see class docstring).
+      traversal wrapped in a zero-gradient VJP (nondiff_intersector);
+    * vertex positions trainable: a GeometryDiffIntersector — the same
+      forward traversal, with t/uv/normal gradients recomputed at the
+      detached winning triangle (see class docstring).
+
+    For the packet traversal, cfg.wave_compact_group > 0 adds per-wave
+    live-ray compaction: the butterfly routing is pure selects, so the loss
+    and gradients are the same as without it.
     """
-    import jax as _jax
+    if cfg.accel == "bvh":
+        base, isect = _bvh_slot_base(scene, cfg)
+        if needs_geometry_grads:
+            return GeometryDiffIntersector(base, base.slot_tri,
+                                           with_tangent=True)
+        return nondiff_intersector(isect)
 
     from tracy_tpu.accel.packet import build_packet_bvh, make_packet_intersector
-
-    on_tpu = _jax.default_backend() not in ("cpu",)
-    use_pallas = cfg.use_pallas and (on_tpu or interpret)
-
-    # The FULL production kernel config (round-4 fix: the training path
-    # used to run a width-2 tree without slab_batch/row_skip — the train
-    # step was forward-bound at ~3x the production render's cost).
-    kernel_knobs = dict(
-        stack_depth=cfg.traversal_stack_depth, interpret=interpret,
-        rb_mode=cfg.pallas_rb_mode, width=cfg.pallas_bvh_width,
-        slab_batch=cfg.pallas_slab_batch, row_skip=cfg.pallas_row_skip,
-        defer_uv=(cfg.pallas_defer_uv and cfg.pallas_rb_mode == "vlist"),
-        packet_rays=cfg.pallas_packet_rays,
+    from tracy_tpu.accel.reorder import (
+        compact_intersector, compact_intersector_slot,
     )
 
+    leaf = cfg.packet_leaf_size
+    grp = cfg.wave_compact_group
+    bvh, _ = build_packet_bvh(scene, leaf_size=leaf)
     if needs_geometry_grads:
-        if use_pallas:
-            from tracy_tpu.ops.pallas_packet import make_pallas_intersector
+        base = make_packet_intersector(scene, bvh, with_tangent=True,
+                                       leaf_size=leaf, return_slot=True)
+        inner, first = base, None
+        if grp > 0:
+            inner = compact_intersector_slot(base, grp, route_tangent=True)
+            if cfg.wave_compact_skip_first:
+                first = base  # bounce-0 peel (all-live wave)
+        return GeometryDiffIntersector(inner, base.slot_tri, with_tangent=True,
+                                       first_base=first)
 
-            bvh, _ = build_packet_bvh(scene, leaf_size=cfg.pallas_leaf_size,
-                                      cost_mode="chunks")
-            base = make_pallas_intersector(
-                scene, bvh, with_tangent=True,
-                return_slot=True, **kernel_knobs,
-            )
-            if base is not None:
-                inner = base
-                first = None
-                if cfg.wave_compact_group > 0:
-                    from tracy_tpu.accel.reorder import (
-                        compact_intersector_slot,
-                    )
-
-                    inner = compact_intersector_slot(
-                        base, cfg.wave_compact_group, route_tangent=True)
-                    if cfg.wave_compact_skip_first:
-                        first = base  # bounce-0 peel (all-live wave)
-                return GeometryDiffIntersector(
-                    inner, base.tables.slot_tri, with_tangent=True,
-                    first_base=first,
-                )
-        bvh, _ = build_packet_bvh(scene, leaf_size=cfg.packet_leaf_size)
-        base = make_packet_intersector(
-            scene, bvh, with_tangent=True, leaf_size=cfg.packet_leaf_size,
-            return_slot=True,
-        )
-        return GeometryDiffIntersector(base, base.slot_tri, with_tangent=True)
-
-    if use_pallas:
-        from tracy_tpu.ops.pallas_packet import (
-            make_pallas_intersector, nondiff_intersector,
-        )
-
-        from tracy_tpu.scene.scene import TEX_NORMAL
-        import numpy as _np
-
-        wt = bool((_np.asarray(
-            scene.materials.tex_index)[:, TEX_NORMAL] >= 0).any())
-        bvh, _ = build_packet_bvh(scene, leaf_size=cfg.pallas_leaf_size,
-                                  cost_mode="chunks")
-        isect = make_pallas_intersector(
-            scene, bvh, with_tangent=wt, **kernel_knobs,
-        )
-        if isect is not None:
-            wrapped = nondiff_intersector(isect)
-            if cfg.wave_compact_group > 0:
-                # Per-wave live-ray compaction composes with training: the
-                # butterfly routing is pure selects (VJP-exact), and the
-                # material/texture gradients flow through the routed
-                # DISCRETE outputs exactly as through the unrouted ones.
-                # (The geometry path keeps its own uncompacted base — its
-                # winner-slot side output isn't routed.)
-                from tracy_tpu.accel.reorder import compact_intersector
-
-                raw = wrapped
-                wrapped = compact_intersector(
-                    wrapped, cfg.wave_compact_group, route_tangent=True)
-                if cfg.wave_compact_skip_first:
-                    wrapped.first = raw  # bounce-0 peel (all-live wave)
-            return wrapped
-
-    bvh, _ = build_packet_bvh(scene, leaf_size=cfg.packet_leaf_size)
-    return make_packet_intersector(scene, bvh, with_tangent=True,
-                                   leaf_size=cfg.packet_leaf_size)
+    isect = nondiff_intersector(make_packet_intersector(
+        scene, bvh, with_tangent=True, leaf_size=leaf))
+    if grp > 0:
+        raw = isect
+        isect = compact_intersector(raw, grp, route_tangent=True)
+        if cfg.wave_compact_skip_first:
+            isect.first = raw  # bounce-0 peel (all-live wave)
+    return isect
 
 
 def render_loss(

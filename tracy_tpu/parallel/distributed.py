@@ -1,16 +1,16 @@
 """Multi-host execution helpers.
 
-The reference is strictly single-process (SURVEY.md §2.7). TPU-natively,
-multi-host rendering is the same `shard_map` program over a mesh that spans
-hosts: `jax.distributed.initialize` wires the hosts, the ('data','sample')
+The reference is strictly single-process (SURVEY.md §2.7). Here multi-host
+rendering is the same `shard_map` program over a mesh that spans hosts:
+`jax.distributed.initialize` wires the processes, the ('data','sample')
 mesh covers the global device set, scene arrays are replicated to every
-host's chips, each host feeds/holds only its own shards of the image, and
-pmean/psum collectives ride ICI within a slice and DCN across slices.
+host's devices, each host feeds/holds only its own shards of the image,
+and the pmean/psum collectives run between processes.
 
 Usage (same program on every host):
 
     from tracy_tpu.parallel.distributed import initialize_multihost, host_rows
-    initialize_multihost()                      # env-driven (TPU pods) or explicit
+    initialize_multihost("localhost:12345", 2, 0)  # explicit cluster
     mesh = make_render_mesh(n_data, n_sample)   # spans ALL hosts' devices
     step = make_sharded_render_step(cfg, mesh)  # identical on every host
     # Feed with jax.make_array_from_callback using host_rows() so each host
@@ -31,8 +31,9 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
                          process_id: Optional[int] = None) -> bool:
     """Initialize jax.distributed (no-op on single process).
 
-    On TPU pods all arguments come from the environment; pass them explicitly
-    for CPU/GPU fleets. Returns True when running multi-process.
+    Pass all three arguments where nothing in the environment describes
+    the cluster (a plain GPU or CPU host); with none, JAX looks for a
+    cluster it knows. Returns True when running multi-process.
     """
     try:
         if coordinator_address is not None:

@@ -2,13 +2,13 @@
 
 The reference's entire parallelism story is OpenMP threads over pixels plus
 one CUDA kernel launch (SURVEY.md §2.7) — single process, single node, no
-communication backend. The TPU framework scales the same workload across a
+communication backend. This framework scales the same workload across a
 device mesh:
 
   axes ('data', 'sample'):
-    * 'data'   — image rows sharded across chips (the DP axis; pixels are the
-                 batch of a renderer);
-    * 'sample' — samples-per-pixel sharded across chips (the SP axis; spp is
+    * 'data'   — image rows sharded across devices (the DP axis; pixels are
+                 the batch of a renderer);
+    * 'sample' — samples-per-pixel sharded across devices (the SP axis; spp is
                  the "sequence" dimension of a Monte Carlo renderer —
                  embarrassingly parallel, reduced with a mean).
 
@@ -16,14 +16,18 @@ Scene arrays (triangles, BVH, materials, textures) are REPLICATED — the
 analogue of the reference's one-shot cudaMemcpy scene upload
 (cuda_trace.cu:262-309) — because path-tracing gathers touch the whole scene
 per bounce; sharding them would turn every gather into a collective. For
-scenes larger than HBM, shard the sample axis only and stream triangles.
+scenes larger than device memory, shard the sample axis only and stream
+triangles.
 
 Collectives used: pmean over 'sample' for radiance, psum over both axes for
-ray counters and (through AD of shard_map) for parameter gradients —
-XLA lowers these onto ICI rings. There is no analogue of tp/pp/ep here: a
-path tracer has no layer pipeline or experts; DP(pixels) x SP(spp) covers
-the machine. RNG streams are keyed by global pixel/sample ids, so ANY mesh
-shape renders the bit-identical image (tests/test_sharding.py).
+ray counters and (through AD of shard_map) for parameter gradients. The
+devices of one host are joined all to all, so the mesh shape follows the
+algorithm (how rows and samples divide), not a topology. There is no
+analogue of tp/pp/ep here: a path tracer has no layer pipeline or experts;
+DP(pixels) x SP(spp) covers the machine. RNG streams are keyed by global
+pixel/sample ids, so ANY mesh shape renders the same image: bit-identical
+with rows sharded, equal up to float summation order with samples sharded
+(tests/test_sharding.py).
 """
 
 from __future__ import annotations
@@ -35,14 +39,11 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from tracy_tpu.config import RenderConfig
 from tracy_tpu.render import film
-from tracy_tpu.render.renderer import RenderState, sample_radiance_rows
+from tracy_tpu.render.renderer import Accel, RenderState, sample_radiance_rows
 from tracy_tpu.scene.scene import SceneArrays
 
 
@@ -79,34 +80,40 @@ def _check_divisible(cfg: RenderConfig, mesh: Mesh):
 
 
 def make_sharded_render_step(cfg: RenderConfig, mesh: Mesh, intersect_fn=None,
-                             shade_fn=None, first_intersect_fn=None):
-    """jitted (scene, state) -> (state', rays) with rows sharded over 'data'
-    and spp over 'sample'. Bit-identical to the single-chip render.
-    shade_fn: optional on-core shading stage (ops/pallas_shade.py) — runs
-    per shard; bit-identical to the XLA shading, so sharded == single-chip
-    still holds. first_intersect_fn: optional uncompacted bounce-0
-    intersector (the wave_compact_skip_first peel, see trace_paths)."""
+                             first_intersect_fn=None, accel: Accel = None):
+    """(scene, state) -> (state', rays) with rows sharded over 'data' and
+    spp over 'sample'. Bit-identical to the single-device render.
+
+    accel: a built acceleration structure (renderer.build_accel); its
+    arrays are replicated over the mesh and cross the jit boundary as
+    arguments. Without it, intersect_fn (default: brute force) and the
+    optional uncompacted bounce-0 first_intersect_fn are used."""
     nd, ns = _check_divisible(cfg, mesh)
     rows_per = cfg.height // nd
     spp_per = cfg.spp // ns
+    data = () if accel is None else jax.device_put(
+        accel.data, NamedSharding(mesh, P()))
 
     @functools.partial(
         shard_map,
         mesh=mesh,
-        in_specs=(P(), P("data", None, None), P()),
+        in_specs=(P(), P("data", None, None), P(), P()),
         out_specs=(P("data", None, None), P()),
         check_vma=False,
     )
-    def step_shard(scene, accum_rows, frame):
+    def step_shard(scene, accum_rows, frame, data):
+        isect, first = intersect_fn, first_intersect_fn
+        if accel is not None:
+            isect = accel.bind(scene, data)
+            first = accel.bind_first(scene, data) if accel.bind_first else None
         di = jax.lax.axis_index("data")
         si = jax.lax.axis_index("sample")
         radiance, rays = sample_radiance_rows(
             scene,
             cfg,
             frame,
-            intersect_fn,
-            shade_fn=shade_fn,
-            first_intersect_fn=first_intersect_fn,
+            isect,
+            first_intersect_fn=first,
             row_offset=di * rows_per,
             num_rows=rows_per,
             spp_offset=si * spp_per,
@@ -122,9 +129,12 @@ def make_sharded_render_step(cfg: RenderConfig, mesh: Mesh, intersect_fn=None,
         return accum, rays
 
     @jax.jit
-    def step(scene: SceneArrays, state: RenderState):
-        accum, rays = step_shard(scene, state.accum, state.frame)
+    def step_jit(scene: SceneArrays, state: RenderState, data):
+        accum, rays = step_shard(scene, state.accum, state.frame, data)
         return RenderState(accum=accum, frame=state.frame + 1), rays
+
+    def step(scene: SceneArrays, state: RenderState):
+        return step_jit(scene, state, data)
 
     return step
 
@@ -164,7 +174,6 @@ def make_sharded_train_step(
             cfg,
             frame,
             intersect_fn,
-            # no shade_fn: the training path must stay differentiable
             row_offset=di * rows_per,
             num_rows=rows_per,
             spp_offset=si * spp_per,

@@ -1,6 +1,6 @@
 """Software rasterizer — raster-preview capability parity.
 
-TPU re-design of the reference CPU rasterizer (src/kernels/raster/cpu/
+Data-parallel re-design of the reference CPU rasterizer (src/kernels/raster/cpu/
 cpu_render.cpp:17-253), which uses the inverse-vertex-matrix homogeneous
 edge-function method (Olano-Greer): per triangle, build the 3x3 matrix of
 raster-space (x, y, w) columns, cull when det >= 0, invert, rows become edge
@@ -9,7 +9,7 @@ perspective-correct via (sample . (Minv @ attr)) * w. The top-left-ish
 tie-break rules of TriangleEval (cpu_render.cpp:22-43) are reproduced.
 
 Where the reference loops every triangle over every pixel under OpenMP
-(O(tris x pixels) per frame), the TPU version runs the same math as a
+(O(tris x pixels) per frame), this version runs the same math as a
 `lax.scan` over triangle chunks with an [pixels, chunk] lane grid and a
 running (depth, winner) carry — depth resolve first, ONE shade per pixel
 afterwards (the reference shades every passing fragment).
@@ -46,7 +46,7 @@ def _det3(m):
 
 
 def _inv3(m, det):
-    """Adjugate/det inverse of [..., 3, 3] (elementwise — stays off the MXU)."""
+    """Adjugate/det inverse of [..., 3, 3] (elementwise: exact in float32)."""
     adj = jnp.stack(
         [
             jnp.stack(
@@ -80,7 +80,7 @@ def _inv3(m, det):
 
 
 def _transform4(m: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
-    """[..., 3] points through a [4,4] matrix -> [..., 4] (VPU mul-adds)."""
+    """[..., 3] points through a [4,4] matrix -> [..., 4] (f32 mul-adds)."""
     return (
         p[..., 0:1] * m[:, 0] + p[..., 1:2] * m[:, 1] + p[..., 2:3] * m[:, 2] + m[:, 3]
     )
@@ -88,7 +88,8 @@ def _transform4(m: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
 
 def _triangle_setup(scene: SceneArrays, width: int, height: int):
     """Per-triangle raster quantities, [T, ...]."""
-    mvp = scene.camera.projection @ scene.camera.view  # host-precision [4,4]
+    mvp = jnp.matmul(scene.camera.projection, scene.camera.view,
+                     precision=jax.lax.Precision.HIGHEST)  # [4,4]
     idx = scene.indices
     corners = [scene.vertex_pos[idx[:, c]] for c in range(3)]  # 3x [T, 3]
     clip = [_transform4(mvp.astype(jnp.float32), p) for p in corners]  # 3x [T, 4]
@@ -130,9 +131,9 @@ def _triangle_setup(scene: SceneArrays, width: int, height: int):
     edges = minv_t / jnp.maximum(norm[..., None], 1e-30)  # [T, 3(edge), 3]
 
     ones = jnp.ones((idx.shape[0], 3), clip[0].dtype)
-    c_vec = jnp.einsum("tij,tj->ti", minv, ones)  # 1/w interpolator [T, 3]
+    c_vec = jnp.einsum("tij,tj->ti", minv, ones, precision=jax.lax.Precision.HIGHEST)  # 1/w interpolator [T, 3]
     zs = jnp.stack([clip[0][..., 2], clip[1][..., 2], clip[2][..., 2]], axis=-1)
-    z_vec = jnp.einsum("tij,tj->ti", minv, zs)  # z interpolator [T, 3]
+    z_vec = jnp.einsum("tij,tj->ti", minv, zs, precision=jax.lax.Precision.HIGHEST)  # z interpolator [T, 3]
 
     return edges, c_vec, z_vec, minv, front
 
@@ -250,8 +251,9 @@ def _render_raster_jit(scene: SceneArrays, cfg: RenderConfig, tri_chunk: int,
     def interp(attr):  # attr: [V, K] -> [P, K]
         corners = jnp.stack([attr[idx[:, 0]], attr[idx[:, 1]], attr[idx[:, 2]]], axis=-1)
         # [P, K, 3] @ Minv: p_vec = Minv @ corners per component
-        pv = jnp.einsum("pij,pkj->pki", mi, corners)
-        return jnp.einsum("pki,pi->pk", pv, sample) * frag_w[:, None]
+        pv = jnp.einsum("pij,pkj->pki", mi, corners, precision=jax.lax.Precision.HIGHEST)
+        return jnp.einsum("pki,pi->pk", pv, sample,
+                          precision=jax.lax.Precision.HIGHEST) * frag_w[:, None]
 
     from tracy_tpu.render.material import gather_surface_params, material_table_lookup
 

@@ -1,6 +1,6 @@
 """Wavefront path-tracing integrator.
 
-TPU re-design of the reference bounce loop (CpuTrace::Trace,
+Data-parallel re-design of the reference bounce loop (CpuTrace::Trace,
 src/kernels/raytracing/software/cpu_trace.cpp:107-170): instead of a per-pixel
 C++ loop with early breaks, ALL rays advance in lock-step through a
 `lax.scan` over bounces with masked lanes — dead lanes simply stop
@@ -121,22 +121,11 @@ def trace_paths(
     intersect_fn: IntersectFn,
     active0: jnp.ndarray = None,  # [N] bool; None = all live. Dead lanes
     # (tile-padding rows) are never counted and contribute no radiance.
-    shade_fn=None,  # optional on-core shading stage (ops/pallas_shade.py):
-    # (o, d, thr, rad, alive, pix, hit_mask, t, normal, tangent, uv, mat,
-    # skey, bounce) -> next (o, d, thr, rad, alive); bit-identical to the
-    # jnp math below. Requires a RICH intersector. Installed by the
-    # Renderer on TPU for beauty renders (textured scenes route through
-    # the texture fetch kernel, ops/pallas_texfetch.py).
-    bounce_fn=None,  # optional FUSED bounce megakernel (intersect + shade
-    # in one kernel, ops/pallas_packet.pallas_trace_bounce, possibly
-    # compaction-wrapped): (o, d, thr, rad, alive, pix, skey, bounce) ->
-    # next (o, d, thr, rad, alive). Supersedes intersect_fn + shade_fn.
     first_intersect_fn=None,  # optional UNcompacted intersector for bounce
     # 0: the primary wave is all-live (modulo tile-padding rows), so the
     # compaction wrapper's butterfly routing is an identity permutation —
     # pure overhead. When given, bounce 0 is peeled out of the scan and
     # runs through this fn instead; bit-identical by construction.
-    first_bounce_fn=None,  # same peel for the fused-bounce path.
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Trace N paths; returns (radiance [N, 3], ray_count scalar)."""
     n = origin.shape[0]
@@ -154,30 +143,14 @@ def trace_paths(
         ray_count=jnp.zeros((), dtype=jnp.int32),
     )
 
-    def make_bounce_step(intersect_fn, bounce_fn):
+    def make_bounce_step(intersect_fn):
       def bounce_step(state: PathState, bounce) -> Tuple[PathState, None]:
         ray_count = state.ray_count + jnp.sum(state.alive, dtype=jnp.int32)
 
-        if bounce_fn is not None:
-            o2, d2, thr2, rad2, alive2 = bounce_fn(
-                state.origin, state.direction, state.throughput,
-                state.radiance, state.alive, pixel_idx, sample_key, bounce,
-            )
-            return PathState(o2, d2, thr2, rad2, alive2, ray_count), None
-
         res = intersect_fn(state.origin, state.direction, state.alive)
-        if shade_fn is not None:
-            hit, pa = res  # rich intersector required
-            o2, d2, thr2, rad2, alive2 = shade_fn(
-                state.origin, state.direction, state.throughput,
-                state.radiance, state.alive, pixel_idx,
-                hit.mask, hit.t, pa.normal, pa.tangent, pa.uv, pa.material,
-                sample_key, bounce,
-            )
-            return PathState(o2, d2, thr2, rad2, alive2, ray_count), None
         if not isinstance(res, Hit):
             # Rich intersector (packet): attributes already interpolated
-            # gather-free inside the traversal.
+            # inside the traversal.
             hit, pa = res
             attrs = HitAttributes(
                 point=state.origin + hit.t[:, None] * state.direction,
@@ -236,17 +209,11 @@ def trace_paths(
 
       return bounce_step
 
-    step = make_bounce_step(intersect_fn, bounce_fn)
-    peel = (first_bounce_fn is not None if bounce_fn is not None
-            else first_intersect_fn is not None)
+    step = make_bounce_step(intersect_fn)
     start = 0
-    if peel and cfg.max_bounces > 0:
-        first_step = make_bounce_step(
-            first_intersect_fn if first_intersect_fn is not None
-            else intersect_fn,
-            first_bounce_fn if bounce_fn is not None else None,
-        )
-        init, _ = first_step(init, jnp.asarray(0, jnp.int32))
+    if first_intersect_fn is not None:
+        init, _ = make_bounce_step(first_intersect_fn)(
+            init, jnp.asarray(0, jnp.int32))
         start = 1
     final, _ = jax.lax.scan(
         step, init, jnp.arange(start, cfg.max_bounces, dtype=jnp.int32)
@@ -290,7 +257,7 @@ def trace_aov(
         out = params.basecolor
     elif cfg.aov == "normals":
         # .5 * normalize(1 + mat3(view) * shading_normal), cpu_trace.cpp:130
-        # (explicit mul-add: keep off the bf16 MXU, see camera.generate_rays)
+        # (explicit mul-add, not a matmul: see camera.generate_rays)
         v = scene.camera.view[:3, :3]
         n = params.normal
         view_n = n[..., 0:1] * v[:, 0] + n[..., 1:2] * v[:, 1] + n[..., 2:3] * v[:, 2]

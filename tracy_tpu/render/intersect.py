@@ -5,10 +5,11 @@ exactly (collision::RayTriangle, src/collision.h:33-74): `det < EPS` culls
 (degenerate + backfacing), `u`/`v` tested against EPS and det *before* the
 division, `t` must be in (EPS, t_max), barycentrics returned as (u, v)/det.
 
-The TPU formulation is data-parallel in both rays and triangles: a lane-grid
+The formulation is data-parallel in both rays and triangles: a lane-grid
 [num_rays_chunk, num_tris_chunk] of independent tests reduced with a min over
-the triangle axis, wrapped in a `lax.scan` over triangle chunks so VMEM/HBM
-working sets stay bounded. No recursion, no per-ray loops — pure VPU work.
+the triangle axis, wrapped in a `lax.scan` over triangle chunks so working
+sets stay bounded. No recursion, no per-ray loops — elementwise float32
+math only (no contraction, so no reduced-precision matmul can enter).
 """
 
 from __future__ import annotations
@@ -25,6 +26,16 @@ from tracy_tpu.core import math as tm
 import numpy as _np
 
 FLT_MAX = _np.float32(3.4028235e38)
+
+
+def inverse_direction(direction: jnp.ndarray) -> jnp.ndarray:
+    """1/direction for slab tests, with components below 1e-12 in magnitude
+    clamped to 1e-12 of the SAME sign: a tiny negative component must stay
+    negative, or the slab interval flips and a box the ray enters through
+    its far face is culled. (Avoids IEEE inf, whose 0*inf gives NaN.)"""
+    return 1.0 / jnp.where(jnp.abs(direction) < 1e-12,
+                           jnp.copysign(jnp.float32(1e-12), direction),
+                           direction)
 
 
 class Hit(NamedTuple):
@@ -88,7 +99,7 @@ def intersect_bruteforce(
     brute-force strategy, cuda_trace.cu:22-70, INCLUDING its AABB pre-cull
     — the reference slab-tests each mesh's box before its triangles
     (cuda_trace.cu:41-50); here the box rides each scanned CHUNK (the
-    natural TPU work unit, finer than meshes) and a whole-chunk miss
+    natural work unit here, finer than meshes) and a whole-chunk miss
     skips the MT via lax.cond.
 
     Scans over padded triangle chunks; [N, tri_chunk] live values at a time.
@@ -115,7 +126,7 @@ def intersect_bruteforce(
     cmax = jnp.pad(vmax, ((0, pad), (0, 0)), constant_values=-big).reshape(
         num_chunks, tri_chunk, 3).max(axis=1)
 
-    inv_d = 1.0 / jnp.where(jnp.abs(direction) < 1e-12, 1e-12, direction)
+    inv_d = inverse_direction(direction)
 
     t_max = jnp.full((n,), FLT_MAX) if t_max is None else t_max
 

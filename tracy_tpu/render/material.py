@@ -75,27 +75,21 @@ def random_on_unit_sphere(r1, r2):
 
 
 def material_table_lookup(materials, mat_id):
-    """Fetch material-table rows for [N] ids WITHOUT a gather.
+    """Fetch material-table rows for [N] ids.
 
-    XLA TPU gathers serialize (~600ns/element); with M materials (tiny), a
-    one-hot [N, M] contraction is pure VPU work and orders of magnitude
-    faster. Exact: one-hot rows have a single 1.0.
+    A plain row gather: exact, and cheap on a GPU. (A one-hot contraction
+    would run as a float32 matrix product, which a GPU may execute in TF32
+    and round the table to ~3 decimal digits.) Ids outside the table are
+    clamped into it; such lanes are misses, which the caller masks.
 
     Returns (albedo, roughness, metalness, ior, emissive, translucent,
     tex_index[N,5] int32).
     """
     m = materials
-    num_m = m.albedo.shape[0]
-    oh = (mat_id[:, None] == jnp.arange(num_m, dtype=mat_id.dtype)[None, :]).astype(
-        m.albedo.dtype
-    )  # [N, M]
 
     def pick(tab):  # [M] or [M, K]
-        if tab.ndim == 1:
-            return jnp.sum(oh * tab[None, :], axis=-1)
-        return jnp.einsum("nm,mk->nk", oh, tab)
+        return jnp.take(tab, mat_id, axis=0, mode="clip")
 
-    tex = pick(m.tex_index.astype(m.albedo.dtype))  # [N, 5] float (exact ints)
     return (
         pick(m.albedo),
         pick(m.roughness),
@@ -103,7 +97,7 @@ def material_table_lookup(materials, mat_id):
         pick(m.ior),
         pick(m.emissive),
         pick(m.translucent),
-        jnp.round(tex).astype(jnp.int32),
+        pick(m.tex_index).astype(jnp.int32),
     )
 
 

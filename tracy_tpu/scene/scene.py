@@ -2,7 +2,7 @@
 
 The reference Scene (src/scene.h:17-87) owns a camera, vector<Mesh>,
 vector<Material> (slot 0 reserved for the sky material, scene.h:21) and
-vector<Texture>. TPU-natively the scene is ONE pytree of flat arrays — a
+vector<Texture>. Here the scene is ONE pytree of flat arrays — a
 global triangle soup with a shared vertex buffer, a material parameter table
 (SoA), a flat texture atlas and the camera — so the whole thing is a single
 static-shaped jit argument, differentiable end-to-end (gradients flow into

@@ -5,7 +5,7 @@ load (u8 /255 or float straight through, optional sRGB->linear;
 src/texture.h:93-108) and samples nearest-neighbor with repeat wrap and
 v-flip (texture.h:50-57). Image decode is stb_image (JPEG/PNG/HDR).
 
-TPU-natively all textures live in ONE flat `[P, 4]` float array (an "atlas")
+Here all textures live in ONE flat `[P, 4]` float array (an "atlas")
 plus an int table `[K, 4] = (offset, width, height, 0)`; sampling is a single
 computed gather, which keeps any number of differently-sized textures inside
 one static-shaped jit argument. Decode uses PIL (u8 formats) / imageio (HDR).

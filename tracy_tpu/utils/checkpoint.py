@@ -11,9 +11,9 @@ frame index.
 Elasticity: checkpoints are mesh-agnostic. The accum image and the RNG
 streams are keyed by GLOBAL pixel/sample ids (parallel/mesh.py), so a state
 saved under one `jax.sharding.Mesh` shape restores onto ANY other shape —
-including a single chip — and continues bit-identically
-(tests/test_elastic.py). That is the TPU-native failure-recovery story:
-lose half the slice, restore the last checkpoint on what remains.
+including a single device — and continues bit-identically
+(tests/test_elastic.py). That is the failure-recovery story: lose half
+the devices, restore the last checkpoint on what remains.
 """
 
 from __future__ import annotations

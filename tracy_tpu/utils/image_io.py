@@ -1,4 +1,4 @@
-"""Image writing: PNG (via PIL), PPM (dependency-free), EXR-ish raw .npy.
+"""Image writing: PNG and PPM (standard library only), raw .npy.
 
 The reference never saves images at all (SURVEY.md §5 checkpoint/resume:
 none) — its output lives only in the window framebuffer. Here saving is a
@@ -7,6 +7,9 @@ progressive renders.
 """
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -21,9 +24,29 @@ def save_image(img: np.ndarray, path: str):
     elif path.endswith(".npy"):
         np.save(path, img)
     else:
-        from PIL import Image
+        with open(path, "wb") as f:
+            f.write(encode_png(img))
 
-        Image.fromarray(img).save(path)
+
+def encode_png(img: np.ndarray) -> bytes:
+    """uint8 [H,W,3] (RGB) or [H,W,4] (RGBA) -> PNG file bytes: 8-bit
+    truecolor, one zlib stream, filter type 0 on every scanline."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    h, w, c = img.shape
+    if c not in (3, 4):
+        raise ValueError(f"PNG needs 3 or 4 channels, got {c}")
+    raw = np.concatenate(
+        [np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        body = tag + data
+        return (struct.pack(">I", len(data)) + body
+                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
 
 
 def _save_ppm(img: np.ndarray, path: str):

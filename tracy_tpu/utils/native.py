@@ -1,7 +1,7 @@
 """Loader for the native C++ runtime library (libtracy_native.so).
 
 The reference's runtime is C++ end-to-end; here the *device* path is
-JAX/XLA/Pallas and the heavy host-side runtime pieces (BVH build, OBJ scan)
+JAX/XLA and the heavy host-side runtime pieces (BVH build, OBJ scan)
 are C++ behind ctypes. The library is compiled on demand from native/ with
 the system toolchain and cached in native/build/.
 """

@@ -1,9 +1,8 @@
-"""Profiling helpers: jax profiler traces + roofline estimates.
+"""Profiling helper: a jax.profiler trace around a block.
 
 The reference self-meters with a stopwatch and ray counters
-(SURVEY.md §5 tracing/profiling); the TPU equivalents are xprof traces (view
-in TensorBoard / Perfetto) and simple speed-of-light estimates for the hot
-kernels.
+(SURVEY.md §5 tracing/profiling); the device-side equivalent is a profiler
+trace (view in TensorBoard / Perfetto).
 """
 
 from __future__ import annotations
@@ -17,11 +16,11 @@ from tracy_tpu.utils.log import log
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/tracy_xprof"):
-    """Capture an xprof trace of the enclosed block.
+def trace(log_dir: str):
+    """Capture a profiler trace of the enclosed block into `log_dir`.
 
-    View with: tensorboard --logdir /tmp/tracy_xprof  (or upload the
-    .trace.json.gz to ui.perfetto.dev).
+    View with: tensorboard --logdir <log_dir>  (or open the
+    .trace.json.gz in ui.perfetto.dev).
     """
     jax.profiler.start_trace(log_dir)
     t0 = time.perf_counter()
@@ -29,31 +28,4 @@ def trace(log_dir: str = "/tmp/tracy_xprof"):
         yield
     finally:
         jax.profiler.stop_trace()
-        log(f"xprof trace ({time.perf_counter() - t0:.2f}s) -> {log_dir}")
-
-
-def packet_speed_of_light(num_rays: int, tris_per_leaf: int, leaves_per_ray: float,
-                          vpu_tflops: float = 3.0) -> float:
-    """Rough VPU-bound rays/s ceiling for the packet/Pallas traversal.
-
-    Woop leaf math is ~33 flops per (ray, triangle-slot) pair; a packet tests
-    every slot of each visited leaf chunk for every ray.
-    """
-    pair_flops = 33.0
-    flops_per_ray = pair_flops * tris_per_leaf * leaves_per_ray
-    return vpu_tflops * 1e12 / flops_per_ray
-
-
-def packet_hbm_bound(rays_per_packet: int, dma_rows: int,
-                     leaf_visits_per_packet: float,
-                     hbm_gbps: float = 819.0) -> float:
-    """HBM-bandwidth rays/s ceiling for the Pallas packet kernel.
-
-    Every leaf visit DMAs one 128-slot chunk of `dma_rows` f32 rows from
-    HBM into VMEM (ops/pallas_packet.py::build_tables); per-visit cost is
-    measured to track exactly this row count (NOTES.md sessions P-R).
-    v5e HBM ~819 GB/s.
-    """
-    bytes_per_visit = dma_rows * 128 * 4
-    bytes_per_ray = bytes_per_visit * leaf_visits_per_packet / rays_per_packet
-    return hbm_gbps * 1e9 / max(bytes_per_ray, 1e-9)
+        log(f"profiler trace ({time.perf_counter() - t0:.2f}s) -> {log_dir}")
